@@ -1,6 +1,6 @@
 """Bath layer: replica/general bath parametrisation + analytic bath functions.
 
-TPU-first re-implementation of the reference bath subsystem
+JAX re-implementation of the reference bath subsystem
 (/root/reference/ED_BATH.f90, ED_BATH/{user_aux,hbath_setup,dmft_aux}.f90,
 ED_BATH_FUNCTIONS.f90).  The bath is ``Nbath`` replica copies of the cluster:
 

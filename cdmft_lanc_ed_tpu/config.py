@@ -1,6 +1,6 @@
 """Input/config system.
 
-TPU-native re-implementation of the reference input layer
+JAX re-implementation of the reference input layer
 (/root/reference/ED_INPUT_VARS.f90:103-234): every input variable of the
 reference solver is kept, with the same (lower-cased) name and the same
 default, parsed from the same ``NAME=value`` input-file format produced by
@@ -107,7 +107,7 @@ class EDConfig:
     hlocfile: str = "inputHLOC.in"
     logfile: int = 6
 
-    # --- TPU-framework-specific knobs (new; no reference counterpart) ---
+    # --- framework-specific knobs (new; no reference counterpart) ---
     ed_file_suffix: str = ""     # suffix attached to restart/output files
     ed_precision: str = "complex128"   # device dtype for eigensolves
     ed_gf_precision: str = "double"    # GF tridiag dtype: double|single

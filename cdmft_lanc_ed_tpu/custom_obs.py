@@ -1,6 +1,6 @@
 """Custom observables: thermal averages of one-body lattice operators.
 
-TPU-native re-implementation of the reference custom-observable registry
+JAX re-implementation of the reference custom-observable registry
 (/root/reference/ED_OBSERVABLES.f90:696-960): observables of the form
 
     <O> = sum_k Tr[ S(k) G(k, z) ]     (density-matrix contraction)
@@ -30,7 +30,6 @@ import numpy as np
 
 from .bath import basis_lso_of, invg0_bath_lso
 from .gf import evaluate_gf_nnn
-from .utils.hostdev import complex_safe
 from .utils.reshape import nnn2lso
 
 jax.config.update("jax_enable_x64", True)
@@ -96,7 +95,6 @@ class CustomObservables:
             out = out - jnp.asarray(tail)
         return np.asarray(out)
 
-    @complex_safe
     def compute(self) -> Dict[str, float]:
         from scipy.integrate import quad
         cfg = self.solver.cfg

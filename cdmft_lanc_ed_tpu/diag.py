@@ -1,15 +1,15 @@
 """Sector-sweep diagonalization driver.
 
-TPU-first re-implementation of /root/reference/ED_DIAG.f90: loop over all
+JAX re-implementation of /root/reference/ED_DIAG.f90: loop over all
 (N_up, N_dw) Fock sectors, solve each with the dense path (small dims) or the
 device Lanczos eigensolver (ARPACK replacement), and accumulate the retained
 eigenstates into the capacity-constrained :class:`~.eigenspace.StateList`.
 
-Differences from the reference are deliberate TPU-side redesigns:
+Differences from the reference are deliberate device-side redesigns:
 
 * the eigensolver is our thick-restart Lanczos on a device-resident Krylov
   block (ops/lanczos.py) instead of P-ARPACK;
-* the per-sector matvec is the XLA/Pallas SpMM kernel (ops/spmv.py) instead
+* the per-sector matvec is an XLA SpMM kit (ops/spmv.py dispatch) instead
   of the MPI CSR matvec;
 * sector scheduling is pluggable: the default serial sweep mirrors the
   reference (ED_DIAG.f90:78), the parallel module adds batched dispatch of
@@ -299,7 +299,7 @@ def diagonalize_impurity(state: DiagState, build: SectorBuilder,
                                          dup)
                         for m in batch])
                     if cfg.ed_precision == "mixed":
-                        # batched f32 Krylov (fused Pallas H·v on TPU) +
+                        # batched f32 Krylov +
                         # batched f64 Rayleigh-Ritz refine; the f64 stack
                         # is built lazily AFTER the f32 stage (thunk), so
                         # the two operator stacks never coexist in HBM
@@ -313,7 +313,7 @@ def diagonalize_impurity(state: DiagState, build: SectorBuilder,
                                 neigen=neigen_g, ncv=ncv_g,
                                 maxiter=maxiter_g,
                                 tol=max(cfg.lanc_tolerance,
-                                        lanczos._f64_dot_floor()),
+                                        lanczos._F64_TOL_FLOOR),
                                 v0=v0_row, op=dev_i)
 
                         res_list = lanczos.lanczos_eigh_mixed_real_batched(
@@ -354,7 +354,7 @@ def diagonalize_impurity(state: DiagState, build: SectorBuilder,
                                 neigen=neigen_g, ncv=ncv_g,
                                 maxiter=maxiter_g,
                                 tol=max(cfg.lanc_tolerance,
-                                        lanczos._f64_dot_floor()),
+                                        lanczos._F64_TOL_FLOOR),
                                 v0=v0_row, op=dev_i)
 
                         res_list = \
@@ -515,7 +515,7 @@ def diagonalize_impurity(state: DiagState, build: SectorBuilder,
                         else split.build_pair_padded(op)
                     if real_kit is not None:
                         # real symmetric H: the whole Krylov iteration
-                        # stays real — 3x fewer MXU passes than the
+                        # stays real — 3x fewer matmul passes than the
                         # complex kernel; operator passed as argument
                         # (kernel shared across sectors and bath updates)
                         dev, dim_p, embed, extract = real_kit
@@ -563,13 +563,11 @@ def diagonalize_impurity(state: DiagState, build: SectorBuilder,
                         # Ns>=16 regime the reference serves with its
                         # MPI stored-CSR matvec
                         # (ED_HAMILTONIAN_SPARSE_HxV.f90:230-315).
-                        # TWO-KIT scheme (measured, LARGE_BENCH_r05):
-                        # f32/bf16 Krylov on the combinadic tile
-                        # kernels (fastest f32 H·v: per-tile-step DMA
-                        # latency dominates and the hier cross tiles
-                        # run no faster), f64 refine/solve on the
-                        # hierarchical kit whose f64 operator +
-                        # emulation temps fit ONE chip at Ns=16
+                        # TWO-KIT scheme: f32/bf16 Krylov on the
+                        # combinadic tile kernels, f64 refine/solve on
+                        # the hierarchical kit (its f64 operator is ~150
+                        # MB of tiles + KB dense blocks at Ns=16, vs 388
+                        # MB for the tile kit)
                         from .ops import hier_dev, large
                         hk64 = hier_dev.build_real_padded_hier(
                             op, dtype=jnp.float64)
@@ -585,7 +583,7 @@ def diagonalize_impurity(state: DiagState, build: SectorBuilder,
                                 dev32 = large.build_real_padded_large(
                                     op, dtype=jnp.float32)[0]
                                 # two-stage Krylov: bf16 tiles for the
-                                # cold restarts (~2x MXU MAC rate),
+                                # cold restarts (tensor-core rate),
                                 # f32 below bf16 resolution, f64
                                 # refine certifies
                                 dev16 = large.build_real_padded_large(
@@ -688,7 +686,7 @@ def diagonalize_impurity(state: DiagState, build: SectorBuilder,
             res = _lanc_once(nblock, nitermax)
             # escalate-on-stall: an unconverged solve retries with grown
             # ncv/maxiter (bounded by the device memory budget) before
-            # anything is retained — the TPU-side analog of the
+            # anything is retained — the device-side analog of the
             # reference's adaptive neigen_sector/Ncv growth
             # (ED_DIAG.f90:394-469)
             esc = 0
@@ -716,7 +714,7 @@ def diagonalize_impurity(state: DiagState, build: SectorBuilder,
             # device-resident vectors (large sectors) stay on device;
             # host results pass through unchanged.  Split-pair planes
             # (complex-H large sectors) are stored per state as
-            # SplitVector (complex dtypes are unusable on this TPU).
+            # SplitVector.
             import jax as _jax
             ev = res.eigenvectors
             if isinstance(ev, tuple) and len(ev) == 2:

@@ -22,8 +22,8 @@ from .utils import fock
 class SplitVector:
     """Device-resident complex eigenvector as (re, im) f64 planes.
 
-    Complex dtypes are unusable on the target TPU, so large-sector
-    eigenvectors of COMPLEX Hamiltonians stay in HBM as a split pair
+    Large-sector eigenvectors of COMPLEX Hamiltonians stay in device
+    memory as the split pair the pair kernels produce
     (the real-H path stores a single real plane).  Host consumers call
     :meth:`to_host`; device consumers use the planes directly."""
     re: object                          # jax.Array [dim]

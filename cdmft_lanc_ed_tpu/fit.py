@@ -1,6 +1,6 @@
 """chi^2 bath fit: conjugate-gradient optimisation of the bath parameters.
 
-TPU-first re-implementation of /root/reference/ED_FIT_CHI2.f90 +
+JAX re-implementation of /root/reference/ED_FIT_CHI2.f90 +
 ED_FIT_REPLICA.f90 + ED_FIT_GENERAL.f90.  The reference carries ~1.2k lines
 of hand-derived analytic gradients (ED_FIT_REPLICA.f90:528-969,
 ED_FIT_GENERAL.f90:528-1010); here the whole chi^2 — including the batched
@@ -34,7 +34,6 @@ from .bath import BathBasis, DmftBath, basis_lso_of, pack_dmft_bath, \
     unpack_dmft_bath
 from .config import EDConfig
 from .utils.reshape import nnn2lso
-from .utils.hostdev import complex_safe
 
 jax.config.update("jax_enable_x64", True)
 
@@ -96,7 +95,6 @@ def _make_chi2(cfg: EDConfig, basis_lso: jnp.ndarray,
     return jax.jit(jax.value_and_grad(chi2)), jax.jit(model), jax.jit(chi2)
 
 
-@complex_safe
 def chi2_fitgf(cfg: EDConfig, hb: BathBasis, fg_nnn: np.ndarray,
                bath_array: np.ndarray,
                hloc_nnn: Optional[np.ndarray] = None,

@@ -1,6 +1,6 @@
 """Green's functions: batched GF-Lanczos, pole/weight spectra, self-energy.
 
-TPU-first re-implementation of /root/reference/ED_GF_NORMAL.f90 +
+JAX re-implementation of /root/reference/ED_GF_NORMAL.f90 +
 ED_GREENS_FUNCTIONS.f90 + ED_GF_SHARED.f90.  Physics is identical (continued
 fraction via Lanczos tridiagonalisation in the particle-added/removed sector,
 2-channel symmetric or 4-channel general off-diagonal combination, Boltzmann
@@ -12,7 +12,7 @@ weights); the execution model is redesigned for the hardware:
   all pair combinations are linear combinations of the base vectors;
 * every injection that targets the same (N_up, N_dw) sector runs in ONE
   batched Lanczos (ops/lanczos.lanczos_tridiag_batched): the H·v kernel
-  becomes an SpMM with n_injections columns — MXU/VPU-friendly — and H is
+  becomes an SpMM with n_injections columns — GEMM-friendly — and H is
   built once per target sector per state (the reference rebuilds H per
   injection, ED_GF_NORMAL.f90:208,275);
 * pole/weight accumulation into G(z) over the full frequency grids is one
@@ -99,8 +99,7 @@ class GFSpectrum:
 
     def evaluate(self, key, z: np.ndarray) -> np.ndarray:
         """G(z) = sum_k w_k / (z - p_k) (ed_gf_cluster rebuild,
-        ED_IO/gf_cluster.f90:1-88).  Host numpy: the pole sums are tiny
-        and complex128 is not device-executable on the target TPU."""
+        ED_IO/gf_cluster.f90:1-88).  Host numpy: the pole sums are tiny."""
         p, w = self.flat(key)
         if len(p) == 0:
             return np.zeros(len(z), np.complex128)
@@ -288,9 +287,9 @@ def build_gf_normal(cfg: EDConfig, state: DiagState, build: SectorBuilder,
     op_cache: Dict[Tuple[int, int], object] = {}
     use_split = spmv.use_split_backend()
     # opt-in single-precision GF tridiagonalisation (ed_gf_precision):
-    # alpha/beta at f32 give ~1e-6-relative GF accuracy at ~3-4x the
-    # matvec throughput (fused Pallas kernel on TPU); pole weights and the
-    # continued-fraction evaluation stay f64
+    # alpha/beta at f32 give ~1e-6-relative GF accuracy at a higher
+    # matvec throughput; pole weights and the continued-fraction
+    # evaluation stay f64
     import jax.numpy as _jnp
     gf_single = cfg.ed_gf_precision == "single"
     gf_dtype = _jnp.float32 if gf_single else _jnp.float64
@@ -302,8 +301,8 @@ def build_gf_normal(cfg: EDConfig, state: DiagState, build: SectorBuilder,
 
     def matvec_for(jnup, jndw, want_real=False):
         """Device kernel kit for the target sector.  ``want_real`` selects
-        the one-plane kernel for real injections on a real H (3x fewer MXU
-        passes); returns None if that sector is not real.  Kits are built
+        the one-plane kernel for real injections on a real H (3x fewer
+        matmuls); returns None if that sector is not real.  Kits are built
         lazily and cached per (sector, kind).  Split kits carry the
         operator as a pytree (passed as an argument to the jitted
         tridiagonalisation, so the compiled kernel is shared across
@@ -383,7 +382,7 @@ def build_gf_normal(cfg: EDConfig, state: DiagState, build: SectorBuilder,
                         op_cache[key] = None
                     else:
                         # large appliers are pre-batched (batch folded
-                        # into the SpMM width — no vmap over Pallas)
+                        # into the SpMM width)
                         op_cache[key] = (apply_fn,) + kit + (is_large,)
                 else:
                     if is_large:
@@ -439,8 +438,7 @@ def build_gf_normal(cfg: EDConfig, state: DiagState, build: SectorBuilder,
         if isinstance(vec, SplitVector):
             # device-resident split-pair state (complex-H large sector):
             # excitations AND the 4-channel complex combinations are
-            # built on device, plane-wise (complex dtypes are unusable
-            # on the target TPU)
+            # built on device, plane-wise
             v2d = SplitVector(vec.re.reshape(dim_dw, dim_up),
                               vec.im.reshape(dim_dw, dim_up))
         elif isinstance(vec, jax.Array) and not chan4:
@@ -612,7 +610,7 @@ def build_gf_and_sigma(cfg: EDConfig, hb: BathBasis, bath: DmftBath,
 
     # Real problem ⇒ G_ij = G_ji exactly: the 4-channel scheme is
     # redundant, so auto-select the 2-channel symmetric path (half the
-    # injections, all real → one-plane MXU kernel).  Requires real H
+    # injections, all real → one-plane matmul kernel).  Requires real H
     # (Hloc + bath basis; V, U, Jx/Jp are real by construction) and real
     # retained eigenvectors.
     force_sym = False
@@ -639,29 +637,24 @@ def build_gf_and_sigma(cfg: EDConfig, hb: BathBasis, bath: DmftBath,
     greal = evaluate_gf_nnn(spec, cfg, zreal)
 
     # ---- Sigma = G0^{-1} - G^{-1} (build_sigma_normal) ----
-    # complex frequency linear algebra runs on a complex-capable device
-    # (host CPU under a TPU session — see utils/hostdev.py)
-    from .utils.hostdev import complex_compute
-
     def to_lso_freq(g):
         # [.,.,.,.,.,.,L] -> [L, Nlso, Nlso]
         return np.moveaxis(nnn2lso(g, nlat, nspin, norb), -1, 0)
 
-    with complex_compute():
-        hloc_lso = jnp.asarray(nnn2lso(imp_hloc, nlat, nspin, norb))
-        basis_lso = basis_lso_of(cfg, hb)
-        v = jnp.asarray(bath.v)
-        lam = jnp.asarray(bath.lam)
-        invg0_m = invg0_bath_lso(jnp.asarray(zmats), hloc_lso, cfg.xmu, v,
-                                 lam, basis_lso)
-        invg0_r = invg0_bath_lso(jnp.asarray(zreal), hloc_lso, cfg.xmu, v,
-                                 lam, basis_lso)
-        invg_m = jnp.linalg.inv(jnp.asarray(to_lso_freq(gmats)))
-        invg_r = jnp.linalg.inv(jnp.asarray(to_lso_freq(greal)))
-        smats_lso = np.asarray(invg0_m - invg_m)
-        sreal_lso = np.asarray(invg0_r - invg_r)
-        g0m_lso = np.asarray(jnp.linalg.inv(invg0_m))
-        g0r_lso = np.asarray(jnp.linalg.inv(invg0_r))
+    hloc_lso = jnp.asarray(nnn2lso(imp_hloc, nlat, nspin, norb))
+    basis_lso = basis_lso_of(cfg, hb)
+    v = jnp.asarray(bath.v)
+    lam = jnp.asarray(bath.lam)
+    invg0_m = invg0_bath_lso(jnp.asarray(zmats), hloc_lso, cfg.xmu, v,
+                             lam, basis_lso)
+    invg0_r = invg0_bath_lso(jnp.asarray(zreal), hloc_lso, cfg.xmu, v,
+                             lam, basis_lso)
+    invg_m = jnp.linalg.inv(jnp.asarray(to_lso_freq(gmats)))
+    invg_r = jnp.linalg.inv(jnp.asarray(to_lso_freq(greal)))
+    smats_lso = np.asarray(invg0_m - invg_m)
+    sreal_lso = np.asarray(invg0_r - invg_r)
+    g0m_lso = np.asarray(jnp.linalg.inv(invg0_m))
+    g0r_lso = np.asarray(jnp.linalg.inv(invg0_r))
 
     def to_nnn(a_lso_freq):
         return lso2nnn(np.moveaxis(a_lso_freq, 0, -1), nlat, nspin, norb)

@@ -1,6 +1,6 @@
 """IO: text-file printers/readers and reduced density matrices.
 
-TPU-native re-implementation of /root/reference/ED_IO.f90 + ED_IO/*.f90.
+JAX re-implementation of /root/reference/ED_IO.f90 + ED_IO/*.f90.
 File naming conventions match the reference exactly so that postprocessing
 scripts written for the reference keep working:
 

@@ -1,6 +1,6 @@
 """Lattice layer: k-grids, local Green's function, DMFT self-consistency.
 
-TPU-native replacement for the external DMFTtools routines the reference
+JAX replacement for the external DMFTtools routines the reference
 drivers rely on (SURVEY.md section 2.2): ``dmft_gloc_matsubara/realaxis``,
 ``dmft_self_consistency``, ``check_convergence``, ``dmft_kinetic_energy``,
 ``TB_build_kgrid``.  Everything is batched dense linear algebra over the
@@ -21,7 +21,6 @@ import numpy as np
 
 from .config import EDConfig
 from .utils.reshape import lso2nnn, nnn2lso
-from .utils.hostdev import complex_safe
 
 jax.config.update("jax_enable_x64", True)
 
@@ -61,7 +60,6 @@ def _gloc_chunk(z: jax.Array, hk: jax.Array, sigma: jax.Array,
     return g.mean(axis=1)
 
 
-@complex_safe
 def gloc_lattice(z: np.ndarray, hk: np.ndarray, sigma_lso: np.ndarray,
                  xmu: float, chunk: int = 256) -> np.ndarray:
     """G_loc(z) = 1/Nk sum_k [(z+mu)I - H(k) - Sigma(z)]^{-1}; chunked over
@@ -98,7 +96,6 @@ def dmft_gloc_realaxis(cfg: EDConfig, hk: np.ndarray,
 # self-consistency (dmft_self_consistency replacement)
 # ---------------------------------------------------------------------------
 
-@complex_safe
 def dmft_self_consistency(cfg: EDConfig, gloc_nnn: np.ndarray,
                           smats_nnn: np.ndarray,
                           hloc_nnn: Optional[np.ndarray] = None,
@@ -163,7 +160,6 @@ class ConvergenceCheck:
 # kinetic energy (dmft_kinetic_energy replacement)
 # ---------------------------------------------------------------------------
 
-@complex_safe
 def dmft_kinetic_energy(cfg: EDConfig, hk: np.ndarray,
                         smats_nnn: np.ndarray) -> float:
     """E_kin = <H_0> on the lattice.

@@ -1,6 +1,6 @@
 """Real-space CDMFT: multiple inequivalent clusters.
 
-TPU-first re-implementation of the reference "lattice" solver variants
+JAX re-implementation of the reference "lattice" solver variants
 (`ed_init_solver_lattice_mpi` / `ed_solve_lattice_mpi`, ED_MAIN.f90:287-374):
 ``Nineq`` inequivalent clusters are solved per DMFT iteration, each an
 independent impurity problem with its own bath and (optionally) its own

@@ -2,13 +2,20 @@
 
 The shared library is compiled on first use with g++ -O3 (the image carries
 the toolchain but no pybind11; the C ABI + ctypes keeps the binding layer
-dependency-free).  All entry points have NumPy fallbacks in utils/fock.py —
-the framework works without a compiler, just slower on huge sectors.
+dependency-free).  It is built for the generic target of the host's
+architecture (no ``-march=native``) into ``native/build/``, named by the
+hash of its source, so a library built on one host loads on any other of
+that architecture and a changed source always rebuilds.  All entry points
+have NumPy fallbacks in utils/fock.py — the framework works without a
+compiler, just slower on huge sectors.
 """
 from __future__ import annotations
 
 import ctypes
+import hashlib
+import logging
 import os
+import platform
 import subprocess
 import threading
 from typing import Optional
@@ -17,21 +24,34 @@ import numpy as np
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_HERE, "tables.cpp")
-_SO = os.path.join(_HERE, "libcdmft_tables.so")
+_BUILD = os.path.join(_HERE, "build")
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _tried = False
+_log = logging.getLogger(__name__)
 
 
-def _build() -> bool:
+def _so_path() -> str:
+    with open(_SRC, "rb") as fh:
+        key = hashlib.sha256(fh.read()).hexdigest()[:16]
+    return os.path.join(
+        _BUILD, f"libcdmft_tables-{platform.machine()}-{key}.so")
+
+
+def _build(so: str) -> bool:
+    """Compile to a private name, then rename: concurrent builders (test
+    workers) never load a half-written library."""
+    os.makedirs(_BUILD, exist_ok=True)
+    tmp = f"{so}.{os.getpid()}.tmp"
     try:
-        subprocess.run(
-            ["g++", "-O3", "-march=native", "-shared", "-fPIC",
-             "-o", _SO, _SRC],
-            check=True, capture_output=True, timeout=120)
-        return True
-    except Exception:
+        subprocess.run(["g++", "-O3", "-shared", "-fPIC", "-o", tmp, _SRC],
+                       check=True, capture_output=True, timeout=120)
+    except (OSError, subprocess.SubprocessError) as e:
+        _log.warning("native tables: build failed (%s); using the NumPy "
+                     "fallback", e)
         return False
+    os.replace(tmp, so)
+    return True
 
 
 def get_lib() -> Optional[ctypes.CDLL]:
@@ -44,14 +64,17 @@ def get_lib() -> Optional[ctypes.CDLL]:
             return _lib
         _tried = True
         if os.environ.get("CDMFT_NO_NATIVE"):
+            _log.info("native tables: CDMFT_NO_NATIVE set; using the NumPy "
+                      "fallback")
             return None
-        if not os.path.exists(_SO) or \
-                os.path.getmtime(_SO) < os.path.getmtime(_SRC):
-            if not _build():
-                return None
+        so = _so_path()
+        if not os.path.exists(so) and not _build(so):
+            return None
         try:
-            lib = ctypes.CDLL(_SO)
-        except OSError:
+            lib = ctypes.CDLL(so)
+        except OSError as e:
+            _log.warning("native tables: load failed (%s); using the NumPy "
+                         "fallback", e)
             return None
         i64p = np.ctypeslib.ndpointer(np.int64, flags="C")
         i32p = np.ctypeslib.ndpointer(np.int32, flags="C")

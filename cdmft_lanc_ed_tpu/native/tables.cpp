@@ -2,7 +2,7 @@
 //
 // Replaces the per-element Fortran loops of the reference Hilbert-space
 // setup (/root/reference/ED_SETUP.f90:720-1097) with tight C++ kernels for
-// the host-side table construction that feeds the TPU kernels:
+// the host-side table construction that feeds the device kernels:
 //   * sector_states: colex/combinadic enumeration of all Ns-bit states with
 //     fixed popcount, ascending (build_sector map order)
 //   * hop_entries_multi: all matrix elements of a batch of one-body hops

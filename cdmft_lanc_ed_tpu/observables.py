@@ -1,6 +1,6 @@
 """Observables: thermal averages, energies, density matrices.
 
-TPU-first re-implementation of /root/reference/ED_OBSERVABLES.f90.  All
+JAX re-implementation of /root/reference/ED_OBSERVABLES.f90.  All
 quantities are **vectorised reductions** over the sector basis instead of the
 reference's per-Fock-state loops (ED_OBSERVABLES.f90:146-236):
 

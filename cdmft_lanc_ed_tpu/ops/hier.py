@@ -2,9 +2,9 @@
 
 The block-sparse tile kernel (ops/large.py) pays for the combinadic
 ordering's scattered one-hop structure: 128x128 tiles on the Ns=16
-factor are 0.45% occupied, so ~99.5% of the MXU work (and the per-tile
+factor are 0.45% occupied, so ~99.5% of the matmul work (and the per-tile
 x DMA) is padding.  This module factors the SAME one-body operator
-exactly, with dense MXU-sized blocks and occupancy-proportional FLOPs:
+exactly, with dense GEMM-sized blocks and occupancy-proportional FLOPs:
 
 split the Ns levels into half A (low ``ha`` bits) and half B; order the
 sector states by (nA, rankA, rankB) so each particle-split block is the
@@ -26,7 +26,7 @@ full dense chain is 21.0M MACs/minor — 1.16x leaner than the 128x128
 tile kernel's padded 24.3M, NOT the naive nnz ratio, because the
 hybridisation cross hops are permutation-sparse but dense-block in
 this algebra.  The production device apply (ops/hier_dev.py) therefore
-runs the within-half terms as dense MXU matmuls (0.74M MACs/minor)
+runs the within-half terms as dense matmuls (0.74M MACs/minor)
 and the cross hops as flat signed row gathers over the hier-ordered
 vector — occupancy-proportional traffic instead of padded FLOPs.
 
@@ -253,7 +253,7 @@ def device_blocks(f: HierFactor):
 def matvec_hier_jnp(f: HierFactor, dev_blocks, x):
     """y = H @ x on device, HIERARCHICAL ordering (x [dim] or
     [dim, minor]); jittable (static block structure, all-dense small
-    matmuls — every op is MXU-shaped when the minor axis is wide)."""
+    matmuls — every op is GEMM-shaped when the minor axis is wide)."""
     import jax.numpy as jnp
 
     squeeze = x.ndim == 1

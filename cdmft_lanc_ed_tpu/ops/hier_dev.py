@@ -5,21 +5,18 @@ Production Ns>=16 kernel.  Each spin factor of the sector Hamiltonian
 96-110) is applied in the hierarchical (nA, rankA, rankB) ordering as
 
 * within-half hops (cluster hops, near-replica hybridisation): the
-  block-diagonal dense [CA,CA]/[CB,CB] chain — MXU matmuls sized by the
+  block-diagonal dense [CA,CA]/[CB,CB] chain — matmuls sized by the
   TRUE operator algebra (0.74M MACs/minor at the Ns=16 flagship vs the
   combinadic tile kernel's 24.3M padded MACs, ~60% of its tiles);
 * cross hops (impurity <-> far-replica hybridisation): the flat signed
   Kronecker maps concentrate onto FEW dense 128x128 tiles in hier
   ordering (measured Ns=16: 574 tiles at 96 nnz/tile vs 1,483 tiles for
-  the full factor), applied with the proven band-output Pallas
-  block-sparse SpMM of ops/large.py.  A flat gather/scatter form was
-  measured 28x SLOWER than the tile kernel on this TPU backend (2.1 s
-  vs 74 ms per H·v) — XLA scatters serialize; tiles ride the MXU.
+  the full factor), applied with the block-sparse SpMM of
+  ops/large.py (a flat gather/scatter form serializes its scatters).
 
 The operator data is small (dense blocks + 574 tiles = ~38 MB f32 per
-factor vs 97 MB), and the XLA fallback's f64 emulation temps shrink
-with the tile count — which is what lets the f64 Rayleigh refine of the
-Ns=16 flagship fit a single 16 GB chip (round-4 VERDICT missing #1).
+factor vs 97 MB), and the XLA path's f64 temps shrink with the tile
+count — the f64 Rayleigh refine of the Ns=16 flagship runs on this kit.
 
 Layout contract: the sector vector lives in HIER ordering on both axes
 for the whole solve, padded to 128-row multiples per axis with the
@@ -64,13 +61,12 @@ class HierFactorDev:
     hb: tuple            # per-block [CB,CB] arrays (present blocks only)
     rb: jax.Array        # [T] i32 cross tile row-block ids (band-major)
     cb: jax.Array        # [T] i32 cross tile col-block ids
-    fs: jax.Array        # [T] i32 first-of-band flags
     tiles: jax.Array     # [T, B, B] cross tiles (plane dtype)
     layout: tuple        # STATIC: (ca, cb, offsets, dim, ha_idx, hb_idx)
 
     def tree_flatten(self):
         return (tuple(self.ha) + tuple(self.hb)
-                + (self.rb, self.cb, self.fs, self.tiles)), self.layout
+                + (self.rb, self.cb, self.tiles)), self.layout
 
     @classmethod
     def tree_unflatten(cls, layout, children):
@@ -79,7 +75,7 @@ class HierFactorDev:
         return cls(ha=tuple(children[:na]),
                    hb=tuple(children[na:na + nb]),
                    rb=children[na + nb], cb=children[na + nb + 1],
-                   fs=children[na + nb + 2], tiles=children[na + nb + 3],
+                   tiles=children[na + nb + 2],
                    layout=layout)
 
 
@@ -111,7 +107,6 @@ def factor_dev_planes(f: hier.HierFactor, dtype=jnp.float32):
             ha=tuple(jnp.asarray(sel(o), bdt) for o in ha),
             hb=tuple(jnp.asarray(sel(o), bdt) for o in hb),
             rb=jnp.asarray(fd.row_blk), cb=jnp.asarray(fd.col_blk),
-            fs=jnp.asarray(fd.first),
             tiles=jnp.asarray(tiles, dtype), layout=layout)
 
     if is_real:
@@ -199,7 +194,7 @@ def _apply_factor(fd: HierFactorDev, x: jax.Array) -> jax.Array:
             else:
                 # [p,a] x [a,b,m] -> [p,b,m]: contract over a with b,m
                 # as FREE dims — merging (b,m) into one axis looks the
-                # same to the MXU but the (rows, minor)->(a, b*minor)
+                # same to the matmul but the (rows, minor)->(a, b*minor)
                 # reshape is a tiled-layout repack that XLA materialised
                 # as three ~2 GB broadcast/remat temps per block
                 # (the round-5 compile-OOM root cause); splitting the
@@ -228,7 +223,7 @@ def _apply_factor(fd: HierFactorDev, x: jax.Array) -> jax.Array:
     if nbb > dim:
         parts.append(jnp.zeros((nbb - dim, m), x.dtype))
     return (jnp.concatenate(parts, axis=0)
-            + large._blk_spmm(fd.rb, fd.cb, fd.fs, fd.tiles, x,
+            + large._blk_spmm(fd.rb, fd.cb, fd.tiles, x,
                               nbb // B))
 
 
@@ -281,8 +276,7 @@ def _mat_t(x: jax.Array) -> jax.Array:
     repack/select chains (measured at the Ns=16 flagship: three
     f32[8,70,931840] repack temps + four 676 MB layout copies — a
     14.6 GB program that OOMs the compile).  The barrier pins one clean
-    transposed copy, exactly what the Pallas custom-call boundary did
-    implicitly for the tile-only kernel."""
+    transposed copy."""
     return jax.lax.optimization_barrier(x.T)
 
 
@@ -508,14 +502,7 @@ def _diag_hier(op: SectorOperator, f_dw, f_up, ddp, dup, dtype):
 
 
 def _hier_pad(dim: int) -> int:
-    """Padded row count of one hier axis.  Large axes round up to the
-    band kernel's full output granule (SUP*B = 1024) AND the Pallas
-    minor-tile width (512): the band output then IS the padded plane
-    and the _blk_spmm column pad is a no-op — at the Ns=16 flagship the
-    pad/slice copies around the two Pallas calls were four extra full
-    planes per H·v and tipped the 16 GB chip over."""
-    if dim > large.SUP * B:
-        return -(-dim // (large.SUP * B)) * (large.SUP * B)
+    """Padded row count of one hier axis: a whole number of tiles."""
     return -(-dim // B) * B
 
 

@@ -1,13 +1,13 @@
 """Per-sector Hamiltonian assembly (host side, vectorised NumPy).
 
-TPU-first redesign of the reference sparse builder
+JAX redesign of the reference sparse builder
 (/root/reference/ED_HAMILTONIAN_SPARSE_HxV.f90:40-152 and
 ED_HAMILTONIAN/sparse/{H_local,H_up,H_dw,H_non_local}.f90).  The sector
 Hamiltonian keeps the reference's exact 4-term tensor-product split
 
     H = D  +  I_dw ⊗ H_up  +  H_dw ⊗ I_up  +  H_nd
 
-but with TPU-friendly data layouts:
+but with device-friendly data layouts:
 
 * ``H_up``/``H_dw`` are padded-ELL blocks (fixed nnz/row) instead of
   linked-list CSR — static shapes for XLA, rows gathered contiguously.

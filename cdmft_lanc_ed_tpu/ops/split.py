@@ -1,11 +1,9 @@
-"""Split-complex (re/im f64) device kernels — the TPU production path.
+"""Split-complex (re/im planes) device kernels — the accelerator path.
 
-TPUs have no native complex128: on the target backend complex128 ops hang or
-fail to compile, while float64 works (software-extended).  The hot kernels
-therefore run on **split representation**: a complex vector is an f64 array
-``x[2, ...]`` with x[0]=Re, x[1]=Im, and complex arithmetic is expanded into
-real einsums — which is also what a good TPU kernel would do by hand (VPU
-operates on real lanes; no wasted complex shuffles).
+The device kernels run on **split representation**: a complex vector is a
+real array ``x[2, ...]`` with x[0]=Re, x[1]=Im, and complex arithmetic is
+expanded into real matmuls (3-mult Karatsuba products), so the f32 Krylov
+stage of the mixed-precision solver has a complex form too.
 
 This module mirrors ops/spmv.py for the split representation.  The complex
 path (ops/spmv.py) remains the CPU/test oracle.
@@ -88,10 +86,10 @@ def _ell_split(cols, vr, vi, x):
     """Row-gather SpMM with complex (vr+i vi) matrix applied to x[2, R, C]
     along the leading row axis: out[2, R, C]."""
     g = x[:, cols, :]                       # [2, R, K, C]
-    ar = jnp.einsum("rk,rkc->rc", vr, g[0]) \
-        - jnp.einsum("rk,rkc->rc", vi, g[1])
-    ai = jnp.einsum("rk,rkc->rc", vr, g[1]) \
-        + jnp.einsum("rk,rkc->rc", vi, g[0])
+    ar = jnp.einsum("rk,rkc->rc", vr, g[0], precision=_PREC) \
+        - jnp.einsum("rk,rkc->rc", vi, g[1], precision=_PREC)
+    ai = jnp.einsum("rk,rkc->rc", vr, g[1], precision=_PREC) \
+        + jnp.einsum("rk,rkc->rc", vi, g[0], precision=_PREC)
     return jnp.stack([ar, ai])
 
 
@@ -126,34 +124,21 @@ def make_matvec_split(op: SplitSectorOp):
 
 
 # ---------------------------------------------------------------------------
-# dense-factor variant: tensor-product blocks as MXU matmuls
+# dense-factor variant: tensor-product blocks as matmuls
 # ---------------------------------------------------------------------------
 #
-# On TPU an ELL row-gather lowers to a slow serialized gather; the spin
-# factors H_up/H_dw are only [Dim_s x Dim_s] (Dim_s = C(Ns, n_s), ~1e3-1e4
-# for production sectors) at ~1% density, and a dense f64 matmul on the MXU
-# beats the gather by >3x even at 1024 and scales far better.  The full H is
-# NEVER materialised — only its two small spin factors (the big Dim_up*Dim_dw
-# object stays implicit in the tensor-product form), so memory is
-# O(Dim_s^2) << O(Dim^2).
+# The spin factors H_up/H_dw are only [Dim_s x Dim_s] (Dim_s = C(Ns, n_s),
+# ~1e3-1e4 for production sectors) at ~1% density, so a dense matmul per
+# factor (a library GEMM) replaces the serialized ELL row-gather.  The full
+# H is NEVER materialised — only its two small spin factors (the big
+# Dim_up*Dim_dw object stays implicit in the tensor-product form), so
+# memory is O(Dim_s^2) << O(Dim^2).
 #
-# Precision split of the kernel stack: the f64 path runs XLA matmuls —
-# Mosaic rejects f64 `dot` on the target TPU (probed: UNIMPLEMENTED), so a
-# Pallas f64 kernel would have to re-implement extended-precision matmul
-# from f32 MXU passes, exactly what XLA's emulated-f64 dot already does at
-# its roofline (bench.py).  The f32 path (mixed-precision Krylov stage)
-# dispatches to the fused Pallas kernel in ops/pallas_fused.py: diag-term
-# + both tensor-product matmuls in one kernel, output tile resident in
-# VMEM across the contraction (runtime-probed, XLA fallback).
-#
-# Double-single/Ozaki splitting was evaluated and rejected (COVERAGE.md
-# "Performance status"): measured v5e envelope f64 1.49 / f32-HIGHEST 19.7 /
-# f32-HIGH 31.1 / bf16 ~100 TFLOP/s.  A 2-term split keeps only f32 accuracy
-# (hi*hi products round at 2^-24); an error-free split needs 6-bit slices at
-# K=2048, i.e. ~45 bf16 passes for 53-bit products = ~2.2 TFLOP/s effective —
-# ~1.5x over native f64 emulation before split/merge overhead.  The
-# mixed-precision eigensolver (f32 Krylov + f64 Rayleigh-Ritz, residual-
-# checked f64 fallback) is the throughput path instead.
+# Every product names its precision: f64 planes run true f64 GEMMs, and the
+# f32 planes of the mixed-precision Krylov stage run at HIGHEST so they
+# stay f32 (not TF32) on a GPU.  The mixed-precision eigensolver (f32
+# Krylov + f64 Rayleigh-Ritz, residual-checked f64 fallback) is the
+# throughput path.
 
 _PREC = jax.lax.Precision.HIGHEST
 
@@ -161,12 +146,10 @@ _PREC = jax.lax.Precision.HIGHEST
 @jax.tree_util.register_pytree_node_class
 @dataclass
 class DenseSplitOp:
-    """Sector Hamiltonian with dense split spin factors (TPU hot path).
+    """Sector Hamiltonian with dense split spin factors.
 
-    All complex data is held as SEPARATE contiguous f64 arrays (not stacked
-    [2, ...] planes): on the target TPU backend, matmuls on slices of a
-    stacked array lower ~3x slower than on standalone operands (measured:
-    26 ms vs 9.5 ms per flagship matvec)."""
+    All complex data is held as SEPARATE contiguous arrays (not stacked
+    [2, ...] planes), so every matmul takes a standalone operand."""
     diag: jax.Array        # [DimDw, DimUp] f64
     hdw_r: jax.Array       # [DimDw, DimDw] f64
     hdw_i: jax.Array
@@ -189,8 +172,8 @@ class DenseSplitOp:
         return cls(*children)
 
 
-# geometric shape ladder: compile times on the target backend (minutes per
-# shape) dwarf the <=1.7x FLOP padding waste, so sector dims snap to a
+# geometric shape ladder: a compile per distinct shape costs more than
+# the <=1.7x FLOP padding waste, so sector dims snap to a
 # coarse ladder and e.g. the (5,5)/(5,6)/(6,6) flagship sectors all share
 # ONE compiled kernel (compile-cache bucketing, SURVEY.md 'sector
 # heterogeneity')
@@ -272,28 +255,20 @@ def matvec_dense_pair(op: DenseSplitOp, xr: jax.Array, xi: jax.Array):
 
     (H_dw ⊗ I)v = H_dw · X ;  (I ⊗ H_up)v = X · H_upᵀ  — the single-chip
     form of the reference's transpose scheme with zero data movement;
-    every heavy op is an MXU matmul at HIGHEST precision (true f64).
+    every heavy op is a matmul at HIGHEST precision.
     Each complex product uses the 3-multiplication (Karatsuba) form:
       Re = P1 - P2,  Im = P3 - P1 - P2
     with P1 = Ar·Xr, P2 = Ai·Xi, P3 = (Ar+Ai)·(Xr+Xi) — 6 matmuls per
-    matvec instead of 8 (25 % fewer MXU passes for one guard bit).  On TPU
-    the f32 pair (mixed-precision Krylov for complex models) dispatches to
-    the fused Pallas kernel."""
-    from . import pallas_fused
-    if pallas_fused.should_use(xr.shape, xr.dtype):
-        out_r, out_i = pallas_fused.fused_pair_matvec(
-            op.diag, op.hdw_r, op.hdw_i, op.hdw_s,
-            op.hupT_r, op.hupT_i, op.hupT_s, xr, xi)
-    else:
-        xs = xr + xi
-        p1 = _mm(op.hdw_r, xr)
-        p2 = _mm(op.hdw_i, xi)
-        p3 = _mm(op.hdw_s, xs)
-        q1 = _mm(xr, op.hupT_r)
-        q2 = _mm(xi, op.hupT_i)
-        q3 = _mm(xs, op.hupT_s)
-        out_r = op.diag * xr + (p1 - p2) + (q1 - q2)
-        out_i = op.diag * xi + (p3 - p1 - p2) + (q3 - q1 - q2)
+    matvec instead of 8 (25 % fewer matmuls for one guard bit)."""
+    xs = xr + xi
+    p1 = _mm(op.hdw_r, xr)
+    p2 = _mm(op.hdw_i, xi)
+    p3 = _mm(op.hdw_s, xs)
+    q1 = _mm(xr, op.hupT_r)
+    q2 = _mm(xi, op.hupT_i)
+    q3 = _mm(xs, op.hupT_s)
+    out_r = op.diag * xr + (p1 - p2) + (q1 - q2)
+    out_i = op.diag * xi + (p3 - p1 - p2) + (q3 - q1 - q2)
     tcount = op.nd_amp_r.shape[0]
     for t in range(tcount):
         # amp * O_dw · X · O_upᵀ   (O real sign patterns; T is tiny)
@@ -315,7 +290,7 @@ def matvec_2d_dense_split(op: DenseSplitOp, x: jax.Array) -> jax.Array:
 # ---------------------------------------------------------------------------
 #
 # Hubbard/SSH/kagome-type sectors have REAL symmetric Hamiltonians (real
-# hoppings, real bath λ).  The split-complex kernel then wastes MXU passes:
+# hoppings, real bath λ).  The split-complex kernel then wastes matmuls:
 # a real H applied to a complex vector needs 4 matmuls (H·Xr, H·Xi per
 # side / 2 sides shared as 2+2) instead of 6, and a purely real Krylov
 # iteration (real v0, real H ⇒ the whole Lanczos stays real) needs only 2.
@@ -329,7 +304,7 @@ _PAD_DIAG = 1e6   # decoupled padding modes sit far above the spectrum
 @jax.tree_util.register_pytree_node_class
 @dataclass
 class DenseRealOp:
-    """Sector Hamiltonian with REAL dense spin factors (TPU hot path for
+    """Sector Hamiltonian with REAL dense spin factors (the hot path for
     real-Hamiltonian models)."""
     diag: jax.Array        # [DimDw, DimUp] f64
     hdw: jax.Array         # [DimDw, DimDw] f64
@@ -399,17 +374,10 @@ def to_device_dense_real(op: SectorOperator, pad_to: tuple = None,
 
 
 def matvec_dense_real(op: DenseRealOp, x: jax.Array) -> jax.Array:
-    """H·x for real H and a REAL plane x [DimDw, DimUp]: two MXU matmuls
+    """H·x for real H and a REAL plane x [DimDw, DimUp]: two matmuls
     (plus the tiny Jx/Jp sign-pattern products) instead of the complex
-    kernel's six.  On TPU the f32 plane (mixed-precision Krylov stage)
-    dispatches to the fused Pallas kernel (ops/pallas_fused.py): one pass
-    over x, output tile resident in VMEM — no HBM round-trip for the two
-    matmul intermediates."""
-    from . import pallas_fused
-    if pallas_fused.should_use(x.shape, x.dtype):
-        out = pallas_fused.fused_real_matvec(op.diag, op.hdw, op.hupT, x)
-    else:
-        out = op.diag * x + _mm(op.hdw, x) + _mm(x, op.hupT)
+    kernel's six; XLA fuses the elementwise terms around the two GEMMs."""
+    out = op.diag * x + _mm(op.hdw, x) + _mm(x, op.hupT)
     for t in range(op.nd_amp.shape[0]):
         out = out + op.nd_amp[t] * _mm(op.nd_dw[t], _mm(x, op.nd_upT[t]))
     return out
@@ -417,7 +385,7 @@ def matvec_dense_real(op: DenseRealOp, x: jax.Array) -> jax.Array:
 
 def matvec_dense_real_pair(op: DenseRealOp, xr: jax.Array, xi: jax.Array):
     """Real H applied to a complex pair: the planes never mix, so this is
-    4 matmuls instead of the complex kernel's 6 (1.5x fewer MXU passes)."""
+    4 matmuls instead of the complex kernel's 6."""
     return matvec_dense_real(op, xr), matvec_dense_real(op, xi)
 
 
@@ -628,8 +596,8 @@ def make_matvec_real_padded(op: SectorOperator, dtype=jnp.float64):
 
 
 # dense-path size threshold: factors up to this dimension are materialised
-# dense (memory O(Dim_s^2) and the MXU wins); beyond it fall back to the
-# ELL gather kernel (Pallas kernel is the long-term answer there)
+# dense (memory O(Dim_s^2) and a dense GEMM wins); beyond them the sector
+# runs on the block-sparse kits (ops/large.py, ops/hier_dev.py)
 DENSE_FACTOR_MAX = 8192
 
 
@@ -718,7 +686,7 @@ def make_matvec_pair_padded(op: SectorOperator, dtype=jnp.float64):
     return mv, ddp * dup, embed, extract
 
 
-def make_matvec_tpu(op: SectorOperator):
+def make_matvec_flat(op: SectorOperator):
     """Flat split matvec [2, dim] -> [2, dim] (compat wrapper)."""
     mv_pair = make_matvec_pair(op)
 

@@ -1,18 +1,22 @@
-"""Device-side sector H·v kernels (complex path: CPU/test oracle).
+"""Complex ELL-gather sector H·v: the CPU/test oracle path.
 
 The sector vector lives as a 2-D array ``v[DimDw, DimUp]`` whose C-order
 flattening matches the reference layout (ED_SETUP.f90:547-560).  The matvec
 exploits the tensor-product split exactly as the reference MPI kernel
-(ED_HAMILTONIAN_SPARSE_HxV.f90:230-315) but TPU-style:
+(ED_HAMILTONIAN_SPARSE_HxV.f90:230-315):
 
-* ``H_dw ⊗ I``: ELL row-gather SpMM on the leading axis — rows of ``v`` are
-  contiguous lanes, ideal for the VPU.
-* ``I ⊗ H_up``: same kernel on the transposed vector (the single-chip analog
-  of the reference's MPI AllToAllV transpose, ED_HAMILTONIAN_COMMON.f90:30-101;
-  under sharding the transpose becomes an all-to-all over the mesh).
-* diagonal: fused elementwise multiply.
+* ``H_dw ⊗ I``: ELL row-gather SpMM on the leading axis;
+* ``I ⊗ H_up``: same kernel on the transposed vector (the single-device
+  analog of the reference's MPI AllToAllV transpose,
+  ED_HAMILTONIAN_COMMON.f90:30-101; under sharding the transpose becomes
+  an all-to-all over the mesh);
+* diagonal: fused elementwise multiply;
 * Jx/Jp (``H_nd``): factored Kronecker one-hop gathers — replaces the
   reference's full-vector allgather (ED_HAMILTONIAN_SPARSE_HxV.f90:299-313).
+
+On an accelerator the solver runs the device kits instead (dense-factor
+ops/split.py, block-sparse ops/large.py, hierarchical ops/hier_dev.py);
+:func:`use_split_backend` makes that choice.
 """
 from __future__ import annotations
 
@@ -28,13 +32,16 @@ jax.config.update("jax_enable_x64", True)
 
 
 def use_split_backend() -> bool:
-    """True when the device path must use split re/im f64 (TPU: complex128
-    is not usable on the target backend — see ops/split.py)."""
+    """True when sectors run on the device kits (real/pair dense-factor,
+    block-sparse and hierarchical kernels, mixed precision, sector-
+    parallel batching): on any accelerator.  The CPU keeps the complex
+    ELL oracle path.  ``CDMFT_SPLIT_BACKEND`` (0/1) overrides the choice,
+    so the CPU tests reach both paths."""
     import os
     env = os.environ.get("CDMFT_SPLIT_BACKEND")
     if env is not None:
         return env not in ("0", "false", "False")
-    return jax.default_backend() == "tpu"
+    return jax.default_backend() != "cpu"
 
 
 @jax.tree_util.register_pytree_node_class

@@ -1,16 +1,16 @@
 """Multi-host initialisation and mesh construction.
 
-Entry point for pod-slice runs (SURVEY.md section 7 step 10): wraps
+Entry point for multi-host runs (SURVEY.md section 7 step 10): wraps
 ``jax.distributed.initialize`` and builds the (sector x dw) mesh over all
-hosts' devices.  On a single host this degrades gracefully to the local
-mesh.  The reference's multi-node story is mpirun + MPI communicators;
-here every process runs the same SPMD program and the collectives ride
-ICI/DCN via the mesh.
+hosts' devices.  On a single host it only builds the local mesh.  The
+reference's multi-node story is mpirun + MPI communicators; here every
+process runs the same SPMD program and the collectives ride the mesh.
 
-Typical pod usage (one process per host):
+Typical usage (one process per host):
 
     from cdmft_lanc_ed_tpu.parallel.distributed import init_distributed
-    mesh = init_distributed(n_sector=2)     # env-driven coordinator
+    mesh = init_distributed("host0:1234", num_processes=2, process_id=0,
+                            n_sector=2)
     from cdmft_lanc_ed_tpu.parallel import multichip
     multichip.set_solver_mesh(mesh)
     ... EDSolver runs with large sectors sharded across all hosts ...
@@ -26,7 +26,7 @@ def init_distributed(coordinator_address: Optional[str] = None,
                      num_processes: Optional[int] = None,
                      process_id: Optional[int] = None,
                      n_sector: int = 1):
-    """Initialise multi-process JAX (no-op when single-process) and return
+    """Initialise multi-process JAX when ``num_processes > 1`` and return
     the global ("sector", "dw") mesh over all devices."""
     import jax
     from jax.sharding import Mesh
@@ -36,13 +36,6 @@ def init_distributed(coordinator_address: Optional[str] = None,
             coordinator_address=coordinator_address,
             num_processes=num_processes,
             process_id=process_id)
-    else:
-        # env-driven auto-init (TPU pods set the cluster env); tolerate
-        # single-process runs where initialize() is unnecessary
-        try:
-            jax.distributed.initialize()
-        except Exception:
-            pass
 
     devices = jax.devices()
     n = len(devices)

@@ -1,6 +1,6 @@
 """Sharded sector H·v: the multi-chip hot kernel.
 
-TPU-native re-design of the reference's MPI-parallel matvec
+JAX re-design of the reference's MPI-parallel matvec
 (/root/reference/ED_HAMILTONIAN_SPARSE_HxV.f90:230-315 and the AllToAllV
 transpose ED_HAMILTONIAN_COMMON.f90:30-101): the sector vector, viewed as the
 matrix ``v[DimDw, DimUp]``, is sharded along the dw axis over a 1-D device
@@ -182,13 +182,13 @@ def make_sharded_matvec(op: DeviceSectorOp, mesh: Mesh, axis: str = "dw"):
 def make_sharded_matvec_dense_pair(op: SectorOperator, mesh: Mesh,
                                    axis: str = "dw"):
     """Sharded dense-factor matvec on the split-pair representation — the
-    multi-chip MXU hot path (analog of split.matvec_dense_pair).
+    multi-device matmul hot path (analog of split.matvec_dense_pair).
 
     The vector pair (xr, xi) [DimDw_p, DimUp] is sharded P(axis, None).
     Per shard: X_loc · H_upᵀ is local matmul; for H_dw · X one all-to-all
     transposes to [DimDw, up_loc], the dw matmul runs locally, and a second
     all-to-all transposes back (ED_HAMILTONIAN_COMMON.f90:30-101 scheme,
-    with the gathers replaced by MXU matmuls).  Jx/Jp terms fold in: the up
+    with the gathers replaced by matmuls).  Jx/Jp terms fold in: the up
     factor is applied pre-transpose, the dw factor while transposed.
 
     Returns (matvec_pair, sharding, (dd_pad, du_pad))."""
@@ -287,7 +287,7 @@ def make_sharded_matvec_dense_real(op: SectorOperator, mesh: Mesh,
                                    axis: str = "dw",
                                    overlap: int = 0):
     """Sharded dense-factor matvec for a REAL sector Hamiltonian on a REAL
-    vector plane (multi-chip twin of split.matvec_dense_real): 2 MXU
+    vector plane (multi-chip twin of split.matvec_dense_real): 2
     matmuls per H·v instead of the complex kernel's 6, and the all-to-all
     payload is halved ([1+T] planes instead of [2+2T]).
 
@@ -338,12 +338,11 @@ def make_sharded_matvec_dense_real(op: SectorOperator, mesh: Mesh,
                              NamedSharding(mesh, P(None, None, None)))
 
     up_loc = du // ndev
-    # overlap is an ICI lever: on a host-virtual (CPU) mesh the chunked
-    # chains are measurably HARMFUL (SCALING_r03: overlap=4 was 1.6x
-    # slower than overlap=0 at 8 virtual devices — there is no async
-    # collective engine to hide the extra launches), so it auto-disables
-    # there and stays opt-in for real multi-chip ICI (round-3 VERDICT
-    # weak item 6).
+    # overlap is an interconnect lever: on a host-virtual (CPU) mesh the
+    # chunked chains only add launches (there is no async collective
+    # engine to hide them; overlap=4 ran 1.6x slower than overlap=0 at 8
+    # virtual CPU devices), so it auto-disables there and stays opt-in
+    # for real multi-device meshes.
     cpu_virtual = all(d.platform == "cpu" for d in mesh.devices.flat)
     nchunk = overlap if (overlap > 1 and t == 0 and not cpu_virtual
                          and up_loc % overlap == 0) else 1

@@ -1,6 +1,6 @@
 """Periodization of cluster quantities to lattice quantities.
 
-TPU-native replacement for the reference driver postprocessing
+JAX replacement for the reference driver postprocessing
 (/root/reference/drivers/auxiliary_routines.f90:8-188): the cluster-matrix
 Green's function / self-energy is reduced to a periodized (Nspin*Norb)
 lattice function by the Fourier phase sum over cluster sites,
@@ -29,7 +29,6 @@ import numpy as np
 
 from .config import EDConfig
 from .utils.reshape import lso2nnn, nnn2lso, nn2so, so2nn
-from .utils.hostdev import complex_safe
 
 jax.config.update("jax_enable_x64", True)
 
@@ -50,7 +49,6 @@ def _phases(kpoint: np.ndarray, coords: np.ndarray) -> np.ndarray:
     return np.exp(-1j * (kr[:, None] - kr[None, :])) / len(coords)
 
 
-@complex_safe
 def periodize_g_scheme(cfg: EDConfig, kpoint, coords: np.ndarray,
                        hk_unper: np.ndarray, smats_nnn: np.ndarray,
                        z: np.ndarray) -> np.ndarray:
@@ -71,7 +69,6 @@ def periodize_g_scheme(cfg: EDConfig, kpoint, coords: np.ndarray,
     return np.asarray(g_per)
 
 
-@complex_safe
 def build_sigma_g_scheme(cfg: EDConfig, kpoint, coords: np.ndarray,
                          hk_unper: np.ndarray, hk_per: np.ndarray,
                          smats_nnn: np.ndarray, z: np.ndarray
@@ -90,7 +87,6 @@ def build_sigma_g_scheme(cfg: EDConfig, kpoint, coords: np.ndarray,
     return g_per, s_per
 
 
-@complex_safe
 def periodize_sigma_scheme(cfg: EDConfig, kpoint, coords: np.ndarray,
                            hk_per: np.ndarray, smats_nnn: np.ndarray,
                            z: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
@@ -111,7 +107,6 @@ def periodize_sigma_scheme(cfg: EDConfig, kpoint, coords: np.ndarray,
     return g_per, np.asarray(s_per)
 
 
-@complex_safe
 def build_g_sigma_scheme(cfg: EDConfig, kpoint, coords: np.ndarray,
                          hk_per: np.ndarray, smats_nnn: np.ndarray,
                          z: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
@@ -125,7 +120,6 @@ def build_g_sigma_scheme(cfg: EDConfig, kpoint, coords: np.ndarray,
     return g_per, s_per
 
 
-@complex_safe
 def periodize_m_scheme_local(cfg: EDConfig, kpoint, coords: np.ndarray,
                              h_local_cluster: np.ndarray,
                              hk_per_hop: np.ndarray,
@@ -171,7 +165,6 @@ def periodize_m_scheme_local(cfg: EDConfig, kpoint, coords: np.ndarray,
     return g_per, s_per
 
 
-@complex_safe
 def periodize_m_scheme(cfg: EDConfig, kpoint, cell_pos: np.ndarray,
                        site_sub: np.ndarray, nsub: int,
                        s_nnn: np.ndarray, z: np.ndarray

@@ -1,6 +1,6 @@
 """Postprocessing: band structures, quasiparticle weights, topology.
 
-TPU-native counterpart of the reference postprocessing driver machinery
+JAX counterpart of the reference postprocessing driver machinery
 (/root/reference/drivers/cdn_bhz_postprocessing.f90:252-568 and
 ED_GREENS_FUNCTIONS.f90:114-127):
 

@@ -1,6 +1,6 @@
 """Solver facade: ed_init_solver / ed_solve.
 
-TPU-first re-implementation of /root/reference/ED_MAIN.f90 (single-cluster
+JAX re-implementation of /root/reference/ED_MAIN.f90 (single-cluster
 path; the multi-inequivalent-cluster lattice variant lives in
 :mod:`.lattice_solver`).  Unlike the reference (mutable module globals) the
 solver is an explicit object holding the configuration, the bath basis and

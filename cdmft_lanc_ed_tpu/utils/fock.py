@@ -1,6 +1,6 @@
 """Fock-space combinatorics for the (N_up, N_dw)-conserving cluster problem.
 
-TPU-first re-design of the reference Hilbert-space setup
+JAX re-design of the reference Hilbert-space setup
 (/root/reference/ED_SETUP.f90): all sector bookkeeping is done **vectorised on
 host in NumPy** and produces static integer tables that are shipped to the
 device once per sector.  Conventions match the reference exactly:

@@ -1,11 +1,9 @@
 """Device-derived memory budgets for the host-side chunkers.
 
 The GF injection batcher, the diag group chunker, and the refine subspace
-caps all bound their working sets by a byte budget.  Round-3 hard-coded
-"2 GB" (wrong in both directions: a 16 GB v5e underuses HBM 8x, the CPU
-test mesh can overcommit) — the budget is now a FRACTION of the actual
-per-device memory when the backend reports it, with the old constant as
-the fallback (reference analog: the MPI code simply divides the sector
+caps all bound their working sets by a byte budget: a FRACTION of the
+actual per-device memory when the backend reports it, with a 2 GB
+constant as the fallback (the CPU test mesh reports nothing) (reference analog: the MPI code simply divides the sector
 over ranks and trusts the allocation to fit,
 /root/reference/ED_HAMILTONIAN.f90:93-105).
 """
@@ -18,7 +16,7 @@ _cache = {}
 
 
 def device_memory_bytes():
-    """(bytes, measured) per device, queried once per process.  TPU/GPU
+    """(bytes, measured) per device, queried once per process.  GPU
     backends report ``bytes_limit`` via memory_stats(); the CPU test mesh
     reports nothing and gets (2 GB, False) — host RAM is shared by 8
     virtual devices, and the legacy constants were tuned for that case."""

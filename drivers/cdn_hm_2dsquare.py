@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """CDMFT driver: Hubbard model on the 2d square lattice, Nx x Ny cluster.
 
-TPU-native counterpart of /root/reference/drivers/cdn_hm_2dsquare.f90.
+JAX counterpart of /root/reference/drivers/cdn_hm_2dsquare.f90.
 Reads the same NAME=value input file format (default inputHM2D.conf), runs
 the full CDMFT loop (ed_solve -> Sigma -> k-summed G_loc -> self-consistency
 -> chi2 bath fit -> mixing -> convergence), prints observables and the

@@ -54,16 +54,14 @@ def test_hier_matvec_matches_ell_factor(nbath, n):
 
 def test_hier_flop_accounting_ns16():
     """Measured FLOP accounting at the Ns=16 half-filled factor (the
-    basis for the round-5 kernel design, recorded in
-    LARGE_BENCH_r04.json): the dense block chain at the even split is
+    basis for the hierarchical kernel design): the dense block chain at the even split is
     1.16x leaner than the 128x128 tile kernel's padded MACs (21.0M vs
     24.3M per minor column) — NOT the naive occupancy ratio (nnz is
     0.11M), because the 16 hybridisation cross hops are
     permutation-sparse but dense-block in this algebra.  The real
     headroom is (a) gather-form cross terms (drops FLOPs to the
     within-half 0.74M) and (b) the block-tridiagonal schedule reading x
-    once — a fused-kernel target of ~3-13 ms/apply vs the measured
-    46 ms."""
+    once."""
     cfg, hloc, hrec, dhyb, terms = _plaquette_terms(3)   # Ns=16
     assert cfg.ns == 16
     f = hier.build_hier_factor(16, 8, terms)

@@ -261,8 +261,7 @@ def test_device_resident_solve_matches_host(tmp_path, monkeypatch):
 
 def test_device_resident_pair_solve_matches_host(tmp_path, monkeypatch):
     """COMPLEX-H large-path solve keeps eigenvectors device-resident as
-    split (re, im) pair planes (SplitVector; complex dtypes are unusable
-    on the target TPU); energies, observables, CDM and GF must match the
+    split (re, im) pair planes (SplitVector); energies, observables, CDM and GF must match the
     dense/host path — the complex counterpart of
     test_device_resident_solve_matches_host."""
     import jax
@@ -633,7 +632,7 @@ def test_device_resident_observables_no_host_transfer(tmp_path,
 
 def test_bf16_tiles_matvec_and_two_stage_solve():
     """bf16-tile operator: ~1e-2-accurate H·v (coarse stage of the
-    two-stage Krylov; 2x MXU MAC rate on TPU) and the two-stage mixed
+    two-stage Krylov; tensor-core rate) and the two-stage mixed
     solve still pins the f64 ground state (the f64 refine certifies the
     retained vectors regardless of the coarse stage)."""
     _, op = _hubbard_op(3, 3, nbath=2)

@@ -1,4 +1,4 @@
-"""Real-Hamiltonian fast path (one-plane MXU kernel + real Lanczos).
+"""Real-Hamiltonian fast path (one-plane matmul kernel + real Lanczos).
 
 Hubbard-type sectors are real symmetric; the real path runs 2 matmuls per
 matvec instead of the split-complex kernel's 6 (ops/split.py).  These tests
@@ -367,7 +367,7 @@ def test_mixed_batched_split_lanczos_matches_dense():
 
 
 def test_gf_single_precision_close_to_double(tmp_path, monkeypatch):
-    """ed_gf_precision='single' (f32 GF tridiag, the TPU throughput lever)
+    """ed_gf_precision='single' (f32 GF tridiag, the throughput lever)
     reproduces the f64 GF to ~1e-4 — poles/weights from f32 alpha/beta."""
     monkeypatch.setenv("CDMFT_SPLIT_BACKEND", "1")
     from cdmft_lanc_ed_tpu import EDSolver

@@ -90,7 +90,7 @@ def test_sharded_lanczos_groundstate(mesh8):
 
 
 def test_sharded_dense_pair_matches_local(mesh8):
-    """Multi-chip MXU dense-factor kernel vs the numpy oracle (incl Jx/Jp)."""
+    """Multi-device dense-factor kernel vs the numpy oracle (incl Jx/Jp)."""
     import jax.numpy as jnp
     cfg, op = make_op(norb=2, nlat=1, nbath=3, nup=3, ndw=2, jx=0.25,
                       jp=0.15)

@@ -1,4 +1,4 @@
-"""Split re/im f64 device path (TPU production path) vs the complex oracle."""
+"""Split re/im f64 device path (accelerator path) vs the complex oracle."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -63,7 +63,7 @@ def test_split_batched_tridiag_matches_complex():
 
 
 def test_full_solver_on_split_backend(tmp_path, monkeypatch):
-    """End-to-end solve with the split backend forced (as on TPU)."""
+    """End-to-end solve with the split backend forced (as on an accelerator)."""
     monkeypatch.setenv("CDMFT_SPLIT_BACKEND", "1")
     from cdmft_lanc_ed_tpu import EDSolver
     h = np.zeros((4, 4, 1, 1, 1, 1), dtype=complex)
@@ -82,11 +82,11 @@ def test_full_solver_on_split_backend(tmp_path, monkeypatch):
 
 
 def test_dense_split_matvec_matches_complex():
-    """MXU dense-factor kernel (TPU hot path) vs the numpy oracle,
+    """dense-factor kernel (accelerator hot path) vs the numpy oracle,
     including Jx/Jp Kronecker terms."""
     cfg, op = make_op(jx=0.3, jp=0.2)
     assert len(op.nd_terms) > 0
-    mv = split.make_matvec_tpu(op)
+    mv = split.make_matvec_flat(op)
     rng = np.random.default_rng(9)
     v = rng.normal(size=op.dim) + 1j * rng.normal(size=op.dim)
     want = op.matvec_np(v)
